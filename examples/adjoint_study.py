@@ -27,7 +27,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--platform", default="cpu", choices=["cpu", "tpu"])
+    ap.add_argument("--platform", default="cpu", choices=["cpu", "gpu"])
     ap.add_argument("--tp", action="store_true", help="two-phase model")
     ap.add_argument("--ascent", type=int, default=3,
                     help="steepest-ascent iterations on log-T (0 = skip)")
@@ -35,8 +35,9 @@ def main():
 
     import jax
 
-    if args.platform == "cpu":
-        jax.config.update("jax_platforms", "cpu")
+    if args.platform is not None:
+        jax.config.update("jax_platforms",
+                          {"cpu": "cpu", "gpu": "cuda"}[args.platform])
     jax.config.update("jax_enable_x64", True)
 
     import dataclasses

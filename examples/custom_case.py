@@ -18,14 +18,15 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--platform", default=None, choices=[None, "cpu", "tpu"])
+    ap.add_argument("--platform", default=None, choices=[None, "cpu", "gpu"])
     ap.add_argument("--days", type=float, default=30.0)
     args = ap.parse_args()
 
     import jax
 
-    if args.platform == "cpu":
-        jax.config.update("jax_platforms", "cpu")
+    if args.platform is not None:
+        jax.config.update("jax_platforms",
+                          {"cpu": "cpu", "gpu": "cuda"}[args.platform])
     jax.config.update("jax_enable_x64", True)
 
     import numpy as np

@@ -102,7 +102,7 @@ def _blocked_case():
 def test_balance_blocked_mode_closes():
     """block_steps>1 never materializes intermediate states, but the block
     body integrates Δtₙ·Q(uₙ) in-device (BlockStats.src_dt), so the audit
-    closes to the same tolerance as the host loop (VERDICT r3 weak-#3)."""
+    closes to the same tolerance as the host loop."""
     model, data = _blocked_case()
     sim = Simulator(model, data, precond="cptr", newton_cfg=TIGHT,
                     time_cfg=TimeConfig(dt_init=1800.0, block_steps=3))

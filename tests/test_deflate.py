@@ -21,7 +21,7 @@ from tests.test_newton_cptr import TIGHT, _compare_states, _tp_case
 
 def _slow_mode_system(rng, n=100, n_slow=6):
     """Nonsymmetric system with a few tiny singular values — the shape of
-    the SPE10 coupling wall (a handful of slow modes; BASELINE.md)."""
+    the SPE10 coupling wall (a handful of slow modes)."""
     a = np.eye(n) + 0.1 * rng.standard_normal((n, n))
     d = np.ones(n)
     d[:n_slow] = 1e-3 * (1.0 + np.arange(n_slow))
@@ -100,8 +100,7 @@ def test_newton_recycle_matches_oracle():
     the f64 dense oracle.  NOTE: ksp_iters counts Arnoldi iterations
     only; each recycled solve also pays k prepare_recycle matvecs, so
     counts are not comparable units with the plain solver (deflate.py
-    docstring) — no iteration assertion here, wall A/Bs live in
-    BASELINE.md."""
+    docstring) — no iteration assertion here."""
     model, data = _tp_case(n=6)
     dts = [3600.0]
     oracle_states = oracle_run(model, data, dts)

@@ -175,7 +175,7 @@ def test_resume_continues_trajectory_exactly(tmp_path):
 @pytest.mark.slow
 def test_block_mode_checkpoints_are_state_consistent(tmp_path):
     """block_steps>1 materializes only the block-final state; checkpoints
-    must pair state and clock consistently (ADVICE r2 medium): a resume
+    must pair state and clock consistently: a resume
     from a block-mode checkpoint reproduces the uninterrupted run."""
     import numpy as np
     import pytest

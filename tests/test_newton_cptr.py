@@ -17,6 +17,7 @@ from thermalporous_tpu.core import Grid
 from thermalporous_tpu.models import SinglePhaseModel, TwoPhaseModel, make_problem_data
 from thermalporous_tpu.physics import PhysicalParams, Well
 from thermalporous_tpu.solve import NewtonConfig, Simulator, oracle_run
+from thermalporous_tpu.solve.oracle import ORACLE_ATOL, ORACLE_NEWTON
 
 
 def _sp_case(n=12, seed=0, lx=120.0):
@@ -45,10 +46,11 @@ def _tp_case(n=8, seed=1, lx=80.0):
     return TwoPhaseModel(g, pp, s_init=0.2), data
 
 
-TIGHT = NewtonConfig(rtol=1e-10, ksp_rtol=1e-8, ksp_maxiter=80, max_iters=25)
+TIGHT = ORACLE_NEWTON
 
 
-def _compare_states(u, u_ref, atol_p=50.0, atol_t=1e-4, atol_s=1e-7):
+def _compare_states(u, u_ref, atol_p=ORACLE_ATOL[0], atol_t=ORACLE_ATOL[1],
+                    atol_s=ORACLE_ATOL[2]):
     np.testing.assert_allclose(np.asarray(u[0]), u_ref[0], atol=atol_p, rtol=0)
     np.testing.assert_allclose(np.asarray(u[1]), u_ref[1], atol=atol_t, rtol=0)
     if u.shape[0] > 2:

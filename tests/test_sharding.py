@@ -218,7 +218,7 @@ def test_sharded_stage2_zebra_z_match():
 
     cfg = NewtonConfig(rtol=1e-8, ksp_rtol=1e-6, ksp_maxiter=80)
     # 1 sweep: undamped ×2 line sweeps can destabilize Newton on small
-    # stiff systems (the instability family in the BASELINE.md ledger);
+    # stiff systems;
     # the sharding-equality property is sweep-count-independent
     pc = CPRConfig(stage2="zebra", stage2_axis=2, stage2_sweeps=1)
     sim = Simulator(model, data, precond="cptr", newton_cfg=cfg, pc_cfg=pc)
@@ -358,7 +358,7 @@ def test_sharded_variational_transfer_match():
     """transfer='variational' (R=Pᵀ, box Galerkin levels): shifts, masks
     and pairwise block-sums only, so a sharded run must match
     single-device with identical counts.  2D on purpose — the 3D box
-    conjugation compiles for minutes (BASELINE.md round-3 ledger) and the
+    conjugation compiles for minutes and the
     sharding-sensitive lowerings are the same per axis."""
     from thermalporous_tpu.precond import CPRConfig, GMGConfig
 

@@ -1,6 +1,6 @@
 """Weighted-prolongation GMG: WideStencil algebra, Galerkin probing
 exactness vs dense RAP, convergence benefit on heterogeneous contrast,
-and full-solver oracle parity (SURVEY.md §7 hard part 1 / VERDICT r2 #4).
+and full-solver oracle parity (SURVEY.md §7 hard part 1).
 """
 
 import numpy as np
@@ -172,7 +172,7 @@ def test_axis_weights_parent_floor():
     diffusion contribution while off-diagonals keep theirs; measured on
     full SPE10 (10⁶ channelized contrast, f32): row-sum/|diag| ratios
     reach 1e9 across levels, the Gershgorin/power λ estimate overflows,
-    and the Chebyshev smoother NaNs (CPU and TPU alike).  And even a ½
+    and the Chebyshev smoother NaNs (on every backend).  And even a ½
     floor leaves the pair DIVERGENT on rough random fields (see
     test_weighted_rough_field_two_level below); the ¾ floor makes
     heterogeneity strictly injection-ward and restores convergence."""
@@ -490,8 +490,7 @@ def test_variational_solver_on_channelized_f32():
         # drifts ~100x from the true residual (solve/fgmres.py docstring
         # ledger), and the exact margin is environment-sensitive (XLA CPU
         # reduction partitioning varies with thread count — an independent
-        # full-gate run measured 0.00927 vs a 1e-4*||b|| bound of 0.00910,
-        # VERDICT r4 weak-#2).  Gate on the measured drift envelope with
+        # full-gate run measured 0.00927 vs a 1e-4*||b|| bound of 0.00910).  Gate on the measured drift envelope with
         # contention headroom, not on the flaky 1e-4 margin.
         assert np.linalg.norm(res) <= 3e-4 * np.linalg.norm(np.asarray(b))
     assert iters["variational"] <= iters["constant"] + 2, iters

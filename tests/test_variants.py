@@ -41,7 +41,7 @@ def test_asymmetric_t_hierarchy_matches_oracle():
     temperature system is near-Laplacian (8 standalone iterations vs the
     pressure block's contrast-limited hierarchy), so a V-cycle/deg-2
     hierarchy preconditions it as well as the pressure-grade K-cycle at
-    ~¾ the apply cost (BASELINE.md round-3 ledger, tools/ab_cycle.py).
+    ~¾ the apply cost (tools/ab_cycle.py).
     """
     from thermalporous_tpu.precond import GMGConfig
 
@@ -152,12 +152,12 @@ def test_one_stage_rbgs_preset_matches_oracle():
 
 
 def test_krylov_op_variants_match():
-    """jvp / stencil / stencil_pallas Krylov operators give the same step."""
+    """jvp / stencil Krylov operators give the same step."""
     import dataclasses
     model, data = _sp_case(n=12)
     u0 = model.initial_state(data)
     results = []
-    for op in ("jvp", "stencil", "stencil_pallas"):
+    for op in ("jvp", "stencil"):
         cfg = dataclasses.replace(TIGHT, krylov_op=op)
         sim = Simulator(model, data, precond="cptr", newton_cfg=cfg)
         u, stats = sim.step(u0, 3600.0)
@@ -231,12 +231,12 @@ def test_block_tridiag_solve_matches_dense(rng):
 ])
 def test_cptr_saturation_stage_matches_oracle(s_stage, kw):
     """The saturation leg of stage 1 (CPTRS) is preconditioning only:
-    the Newton answers reproduce the f64 dense oracle.  (Round-3 verdict
-    on its motivation: the dt=76.8 ks full-SPE10 wall turned out to be
+    the Newton answers reproduce the f64 dense oracle.  (On its
+    motivation: the dt=76.8 ks full-SPE10 wall turned out to be
     the (p,T,S) COUPLING — every decoupled row solves in ≤8 iterations
     standalone, S itself in 1–3 — so the S leg is measured
     iteration-neutral there (96 vs 97) and stays an off-default option;
-    tools/diag_hard.py, BASELINE.md round-3 ledger.)"""
+    tools/diag_hard.py.)"""
     model, data = _tp_case(n=6)
     dts = [3600.0, 7200.0]
     oracle_states = oracle_run(model, data, dts)
@@ -420,7 +420,7 @@ def test_appleyard_chop_same_answer_and_bounds():
 
 
 def test_predictor_tolerance_anchored_at_step_start():
-    """A predictor guess must not move the rtol anchor (ADVICE r2): with a
+    """A predictor guess must not move the rtol anchor: with a
     guess, reported norm0 (and hence the convergence target) equals the
     step-start residual norm, not the typically-much-smaller guess
     residual."""
@@ -563,7 +563,7 @@ def test_gmg_t_asymmetric_matches_oracle():
     adaptive pressure schedule still resolves when gmg_t plans its own.
 
     Motivation: the flagship CPTR apply is latency-bound in the K-cycle's
-    deep-level visits ×2 hierarchies (BASELINE.md round-3 decomposition);
+    deep-level visits ×2 hierarchies;
     the decoupled T system is easy standalone, so it gets a V-cycle.
     """
     from thermalporous_tpu.precond import GMGConfig
@@ -609,7 +609,7 @@ def test_gmg_t_rejects_batch_pt():
 
 # ---------------------------------------------- round-5 stage-2 exact levers
 #
-# VERDICT r4 next-#1: the stage-2 traffic reformulations must be EXACT —
+# The stage-2 traffic reformulations must be EXACT —
 # column-restricted r − A·x₁ (stencil.matvec_cols) and the fused zero-start
 # RBGS sweep (chebyshev.block_rbgs_fused_zero).  These tests pin the
 # bit-level algebra on random operators and the full solver on the oracle.

@@ -1,8 +1,8 @@
-"""thermalporous_tpu — a TPU-native reservoir-thermal simulator.
+"""thermalporous_tpu — a JAX reservoir-thermal simulator.
 
 A from-scratch rebuild of the capabilities of ``tlroy/thermalporous``
 (a Firedrake/PETSc research simulator for non-isothermal flow in porous
-media, arXiv:1812.11566 and arXiv:1907.04229), designed TPU-first:
+media, arXiv:1812.11566 and arXiv:1907.04229), designed for accelerators:
 
 - structured grids as dense arrays (no unstructured mesh machinery);
 - DG0 / two-point-flux finite volumes as fused stencil code;

@@ -1,6 +1,6 @@
 """Structured grids and TPFA geometry.
 
-TPU-native replacement for the reference's geometry providers
+Replacement for the reference's geometry providers
 (``thermalporous/rectanglegeo.py`` / ``boxgeo.py``, upstream, unverified —
 SURVEY.md §2.5) and for the slice of Firedrake/DMPlex they exercise: here a
 "mesh" is just a shape tuple plus spacings, and all fields are dense arrays.

@@ -2,7 +2,7 @@
 
 The reference has no batch dimension — every MPI rank works on one
 realization (SURVEY.md §2 parallelism checklist marks DP "N/A", with an
-optional ensemble axis listed as the cheap TPU win).  Here it is: vmap the
+optional ensemble axis listed as the cheap accelerator win).  Here it is: vmap the
 fully-jitted implicit step over a leading ensemble axis (stacked
 permeability fields, well controls, initial states …) and optionally shard
 that axis over the device mesh — embarrassingly parallel history matching /

@@ -2,7 +2,7 @@
 
 The default multi-chip path lets XLA's SPMD partitioner insert the halo
 collectives for the stencil shifts (dist/sharding.py).  This module is the
-explicit alternative — the direct TPU translation of the reference's
+explicit alternative — the direct translation of the reference's
 PyOP2/MPI halo exchange (SURVEY.md §5.8): each device owns a grid block,
 exchanges one-cell ghost slices with its mesh neighbours via
 ``lax.ppermute``, and evaluates the SAME local physics on the extended

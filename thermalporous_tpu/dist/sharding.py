@@ -1,8 +1,8 @@
-"""Domain decomposition over TPU device meshes.
+"""Domain decomposition over device meshes.
 
 The reference's only parallelism is MPI domain decomposition of the mesh
 with halo exchange at assembly and allreduces in the Krylov solver
-(SURVEY.md §2 checklist, §5.8).  The TPU-native equivalent needs no
+(SURVEY.md §2 checklist, §5.8).  The JAX equivalent needs no
 communication code at all: every field in this package is a dense array
 over the grid axes, so we
 
@@ -11,11 +11,12 @@ over the grid axes, so we
      and every problem-data field with ('x', 'y', ...),
   3. jit the step — XLA's SPMD partitioner inserts the halo
      collective-permutes for the stencil shifts and the all-reduces for the
-     FGMRES dot products, riding ICI.
+     FGMRES dot products (NCCL over NVLink on GPUs).
 
 z stays local: TPFA columns, gravity and GMG z-coarsening then never
-communicate, matching the torus topology to the stencil's locality
-(SURVEY.md §5.7).
+communicate (SURVEY.md §5.7).  Every GPU of a node reaches every other at
+the same NVLink rate, so the mesh shape follows the grid alone: four
+devices make a 2×2 mesh.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 Replaces the reference's print-based monitoring (per-step t/Δt and
 SNES/KSP iteration counts; PETSc -snes_monitor options — SURVEY.md §5.5)
-with machine-readable records that feed the BASELINE measurements directly.
+with machine-readable records that feed the measurements directly.
 """
 
 from __future__ import annotations

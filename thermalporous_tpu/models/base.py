@@ -1,6 +1,6 @@
 """Model base: generic TPFA residual evaluation and block-stencil assembly.
 
-This is the TPU-native replacement for the whole Firedrake assembly slice
+This is the replacement for the whole Firedrake assembly slice
 the reference exercises (UFL forms → TSFC-generated C cell/facet kernels →
 PyOP2 parloops; SURVEY.md §2.12–2.16 and §3.3).  A model is defined by two
 *local* pure functions:
@@ -13,8 +13,7 @@ PyOP2 parloops; SURVEY.md §2.12–2.16 and §3.3).  A model is defined by two
 The SAME local functions are used three ways:
 
 1. broadcast over full arrays → the nonlinear residual (hot path; XLA fuses
-   the elementwise chains — the Pallas fusion in ``kernels/`` is layered on
-   top later without changing semantics);
+   the elementwise chains);
 2. under ``jax.jvp`` → exact matrix-free Jacobian-vector products for the
    Krylov operator (upwind ``where`` branches differentiate the selected
    branch, exactly the Newton linearization of an upwind FV scheme);
@@ -198,8 +197,8 @@ class ThermalModelBase:
         the c-th COLUMN of every local Jacobian block in one full-shape JVP
         pass — nc passes per term, all fused elementwise by XLA.  This
         replaces the earlier ``vmap(jacfwd)`` over flattened cells, whose
-        (N, nc) transposes/moveaxes were pure layout traffic on TPU
-        (measured: the dominant cost of assembly at 1024²).
+        (N, nc) transposes/moveaxes were pure layout traffic (measured:
+        the dominant cost of assembly at 1024²).
         """
         grid = self.grid
         nc = self.nc

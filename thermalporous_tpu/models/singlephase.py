@@ -1,6 +1,6 @@
 """Single-phase non-isothermal flow model (pressure, temperature).
 
-TPU-native equivalent of the reference's ``SPModel``
+Equivalent of the reference's ``SPModel``
 (``thermalporous/singlephase.py`` upstream, unverified — SURVEY.md §2.2),
 implementing the equations of arXiv:1812.11566 [P1]:
 

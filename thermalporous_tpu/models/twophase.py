@@ -1,6 +1,6 @@
 """Two-phase (dead-oil) non-isothermal flow model (p, T, S_w).
 
-TPU-native equivalent of the reference's ``TPModel``
+Equivalent of the reference's ``TPModel``
 (``thermalporous/twophase.py`` upstream, unverified — SURVEY.md §2.3),
 implementing the equations of arXiv:1907.04229 [P2]:
 

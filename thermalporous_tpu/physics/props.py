@@ -1,6 +1,6 @@
 """Fluid and rock property correlations.
 
-TPU-native equivalent of the reference's ``PhysicalParameters``
+Equivalent of the reference's ``PhysicalParameters``
 (``thermalporous/params.py`` upstream, unverified — SURVEY.md §2.4): a frozen
 dataclass of scalars plus jax-traceable property closures shared by the
 single-phase and two-phase models.

@@ -1,11 +1,11 @@
 """Wells and heaters: Peaceman model, source-term fields.
 
-TPU-native equivalent of the reference's well/heater case machinery
+Equivalent of the reference's well/heater case machinery
 (``thermalporous/cases.py``-like module upstream, unverified — SURVEY.md
 §2.7).  The reference localizes wells via DG0 indicator functions; here each
 well writes its Peaceman well index into dense per-cell fields which the
-residual kernels consume directly — the same discrete-delta algebra, laid
-out for the VPU.
+residual consumes directly — the same discrete-delta algebra, laid out
+as dense elementwise fields.
 
 Conventions: source terms are positive INTO the reservoir.  BHP-controlled
 wells contribute ``q = WI·λ·(p_bh − p)``; rate-controlled wells a fixed mass

@@ -1,6 +1,6 @@
 """Flexible GMRES (right-preconditioned), jit-native.
 
-TPU-native replacement for PETSc KSP FGMRES (SURVEY.md §2.12–2.16): the
+Replacement for PETSc KSP FGMRES (SURVEY.md §2.12–2.16): the
 reference wraps PETSc's C implementation; here the Krylov loop is a
 ``lax.while_loop`` over statically-shaped basis arrays, so the whole solve
 lives inside one XLA program (no host round-trips per iteration).
@@ -12,7 +12,7 @@ the solution is reconstructed from them, exactly as PETSc's ``fgmres`` does.
 The operator is matrix-free (a jvp closure); vectors keep their state shape
 ``(nc, *grid)`` throughout — flattening is never materialized.
 
-f32 residual-estimate honesty ledger (VERDICT r4 weak-#2): the Givens
+f32 residual-estimate honesty ledger: the Givens
 recurrence's residual ESTIMATE drifts from the TRUE residual as rounding
 accumulates — measured ~100x at ~100 f32 iterations on channelized
 high-contrast operators (tests/test_transfer.py
@@ -57,8 +57,8 @@ def reduce_dtype(dtype) -> jnp.dtype:
 
 def _dot(a: jax.Array, b: jax.Array) -> jax.Array:
     """Global dot product with f64 accumulation (see ``reduce_dtype``).
-    Under a sharded jit XLA lowers the reduction to an ICI all-reduce — the
-    TPU equivalent of PETSc's VecDot MPI allreduce."""
+    Under a sharded jit XLA lowers the reduction to an all-reduce — the
+    equivalent of PETSc's VecDot MPI allreduce."""
     rd = reduce_dtype(a.dtype)
     if rd == a.dtype:
         return jnp.vdot(a, b)
@@ -110,10 +110,9 @@ def fgmres(
       basis_dtype: optional storage dtype for the Arnoldi basis V (e.g.
         ``jnp.bfloat16``).  The CGS2 orthogonalization streams the FULL
         static (m+1)-slot basis four times per iteration — the dominant
-        HBM traffic of a preconditioned solve (BASELINE.md roofline) — so
+        memory traffic of a preconditioned solve (tools/roofline.py) — so
         halving the basis bytes halves the top line.  Projections run as
-        bf16×bf16 contractions with f32 accumulation (the MXU-native
-        shape); matvec/preconditioner/Hessenberg/solution stay in the
+        bf16×bf16 contractions with f32 accumulation; matvec/preconditioner/Hessenberg/solution stay in the
         compute dtype, and the CGS2 second pass mops up the extra
         O(eps_bf16) non-orthogonality.  The flexible basis Z (written and
         read once per slot) stays in the compute dtype so the returned x
@@ -135,7 +134,7 @@ def fgmres(
         ``‖w_pre‖² = ‖h‖² + ‖w₁‖²`` (Pythagoras on the orthonormal basis,
         so the test costs no extra array reduction).  Iterations with
         benign cancellation skip half the dominant basis-streaming
-        traffic via a ``lax.cond`` (one branch executes on TPU);
+        traffic via a ``lax.cond`` (one branch executes);
         iterations with real cancellation — exactly where CGS1 loses
         orthogonality — still reorthogonalize.  NOTE: under ``vmap``
         (the ensemble axis) ``cond`` lowers to ``select`` and both
@@ -148,8 +147,8 @@ def fgmres(
         (VᵀV)c₁ = c₁ − G c₁ — and BOTH corrections apply in one
         reconstruction pass w″ = w − V(c₁+c₂).  Classic CGS2 reads the
         full static basis 4× per iteration (2 projection + 2
-        reconstruction passes), the dominant HBM traffic of a
-        preconditioned solve (BASELINE.md roofline); this variant reads:
+        reconstruction passes), the dominant memory traffic of a
+        preconditioned solve (tools/roofline.py); this variant reads:
 
         * ``orth_gram=3``: 3 passes — the new Gram column comes from
           REAL dots against the stored (possibly low-precision) basis,
@@ -248,7 +247,7 @@ def fgmres(
         # the second CGS pass already restores orthogonality to O(eps), and
         # upcasting the (m+1, N) contraction would forfeit the bandwidth it
         # rides on (with bf16 storage the contraction is bf16×bf16 with
-        # f32 accumulation — the MXU-native shape).  The f64 accumulation
+        # f32 accumulation).  The f64 accumulation
         # lives in the scalar-producing _dot/_norm (beta, ||b||, h_next,
         # Givens inputs), where it sets the convergence decision
         # (tests/test_fgmres.py asserts f32-with-f64-reductions iteration
@@ -258,8 +257,8 @@ def fgmres(
         def proj(x):
             """ONE read of V: batched dots <V_i, x> (mask applied by caller).
             With low-precision storage this is a broadcast-multiply-reduce,
-            NOT a dot HLO: a skinny (m+1, N) low-precision dot pads onto
-            the MXU (rows pad 41→128 — measured 40% end-to-end LOSS),
+            NOT a dot HLO: a skinny (m+1, N) low-precision dot pads its
+            rows to the matrix unit's tile (measured an end-to-end loss),
             while the fused reduce reads V once at bf16 bytes with the
             convert folded into the reduction loop."""
             if mixed:

@@ -14,6 +14,21 @@ import jax.numpy as jnp
 import numpy as np
 
 from thermalporous_tpu.models.base import ProblemData, ThermalModelBase
+from thermalporous_tpu.solve.newton import NewtonConfig
+
+#: per-component absolute tolerances (p [Pa], T [K], S_w) within which the
+#: production solver at tight Newton/Krylov tolerances must reproduce the
+#: oracle's state: the parity gate of the tests and of chip_smoke.py
+ORACLE_ATOL = (50.0, 1e-4, 1e-7)
+#: the tight Newton/Krylov tolerances of that comparison
+ORACLE_NEWTON = NewtonConfig(rtol=1e-10, ksp_rtol=1e-8, ksp_maxiter=80,
+                             max_iters=25)
+
+
+def state_errors(u, u_ref) -> list[float]:
+    """Max absolute error per state component against an oracle state."""
+    u, u_ref = np.asarray(u), np.asarray(u_ref)
+    return [float(np.max(np.abs(u[c] - u_ref[c]))) for c in range(u.shape[0])]
 
 
 def dense_newton_step(

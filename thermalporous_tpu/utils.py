@@ -1,8 +1,8 @@
 """Utilities: finite-checks, profiling, convergence-history summaries.
 
-Covers the reference's auxiliary subsystems the TPU way (SURVEY.md §5):
+Covers the reference's auxiliary subsystems (SURVEY.md §5):
 §5.1 tracing/profiling → ``trace`` (XProf/Perfetto) and ``Timer``;
-§5.2 sanitizers → ``assert_all_finite`` (the TPU substitute for race
+§5.2 sanitizers → ``assert_all_finite`` (the substitute for race
 detection is NaN/Inf guarding plus the sharded-vs-replicated equality
 tests); §2.9 helpers → convergence-history aggregation.
 """

@@ -1,7 +1,7 @@
 """Does Krylov recycling (solve/deflate.py) pay on the hard SPE10 system?
 
 The dt-ramp wall is a handful of slow coupled (p,T,S) modes that EVERY
-Newton iteration's FGMRES must rediscover (BASELINE.md round-3 ledger).
+Newton iteration's FGMRES must rediscover.
 This probe builds the post-ramp hard system like tools/diag_hard.py and
 runs the Newton-sequence experiment explicitly:
 

@@ -1,6 +1,6 @@
 """Dense two-level analysis: is the VARIATIONAL pair (weighted P, R = Pᵀ)
 worth a 5-wide stencil class?  (The decision gate for the dt=76.8 ks wall —
-BASELINE.md round-3 weighted-P section, docs/parity.md known-gaps.)
+docs/parity.md known-gaps.)
 
 Compares asymptotic two-level convergence factors ρ(E), E = S²·CGC·S²
 (deg-2 damped-Jacobi smoothing, exact coarse solve) for:
